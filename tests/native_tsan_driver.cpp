@@ -16,7 +16,7 @@
 // Build + run (CI "tsan" job):
 //   g++ -O1 -g -fsanitize=thread -std=c++17 \
 //       tests/native_tsan_driver.cpp tpu_blosc/native/tpublosc.cpp \
-//       -o /tmp/tsan_driver -lz -lzstd
+//       -o /tmp/tsan_driver -lz
 //   /tmp/tsan_driver
 //
 // NOTE the build intentionally OMITS -fopenmp: GCC's libgomp synchronizes

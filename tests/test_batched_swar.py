@@ -5,7 +5,7 @@ friends) instead of byte-granular relayouts; these tests pin byte
 equality with the generic u8 transpose kernels (which are themselves
 pinned against filters/reference.py by the dispatch tests), for every
 supported type_size, plus the dtype-matrix of the jitted device prep
-(including a ragged tail and bfloat16 — the dominant TPU dtype).
+(including a ragged tail and bfloat16 — the dominant accelerator dtype).
 """
 
 from __future__ import annotations

@@ -171,3 +171,49 @@ def test_unregistered_codec_compress_error():
     # the reference leaves the slot empty, blosc.go:58)
     with pytest.raises(blosc.InvalidCodecError):
         blosc.compress(b"data", 7, 5, blosc.NOSHUFFLE, 1)
+
+
+def test_zstd_codec_served_by_native_without_zstandard(monkeypatch):
+    """Without python-zstandard the ZSTD codec rides the libzstd that the
+    native runtime loads: standard frames, every tier, both directions."""
+    import zstandard
+
+    from tpu_blosc.codecs import standard
+    from tpu_blosc.native import backend as nb
+
+    if not nb.zstd_available():
+        pytest.skip("native runtime has no libzstd")
+    monkeypatch.setattr(standard, "_zstd", None)
+    codec = standard.ZstdCodec()
+    data = np.arange(200_000, dtype=np.float32).tobytes()
+    for level in (1, 3, 5, 9):
+        comp = codec.compress(data, level)
+        assert zstandard.ZstdDecompressor().decompress(comp) == data
+        assert codec.decompress(comp, len(data)) == data
+    other = zstandard.ZstdCompressor(level=3).compress(data)
+    assert codec.decompress(other, len(data)) == data
+    with pytest.raises(blosc.DecompressionFailedError):
+        codec.decompress(other[:-9], len(data))
+
+
+def test_zstd_stays_registered_without_zstandard(monkeypatch):
+    from tpu_blosc.codecs import standard
+    from tpu_blosc.native import backend as nb
+
+    if not nb.zstd_available():
+        pytest.skip("native runtime has no libzstd")
+    monkeypatch.setattr(standard, "_zstd", None)
+    try:
+        standard.register_standard_codecs()
+        assert standard.is_builtin(blosc.ZSTD)
+        data = bytes(range(256)) * 4096
+        for frame in (
+            blosc.compress(data, blosc.ZSTD, 5, blosc.SHUFFLE, 4),
+            blosc.compress_with_options(
+                data, blosc.Options(codec=blosc.ZSTD, block_size=65536)
+            ),
+        ):
+            assert blosc.decompress(frame) == data
+    finally:
+        monkeypatch.undo()
+        standard.register_standard_codecs()

@@ -596,47 +596,41 @@ def test_reconstruct_match_row_non_dividing_offset():
         assert np.array_equal(got, row), (seg, d)
 
 
-def test_fused_match_core_equals_xla_core():
-    """The Pallas fused literal-mask stage is bit-identical to the XLA
-    formulation (interpret mode on CPU) across structured + random data."""
+def test_match_core_matches_host_oracle():
+    """The device match core (plain XLA) agrees with the host oracle:
+    per-row best offset (first argmax of equal-pair counts), literal
+    counts, and the packed literal mask of every kept row."""
     import jax.numpy as jnp
 
-    from tpu_blosc.device import (
-        _device_match_core,
-        _device_match_core_fused,
-        _match_offsets,
-    )
-    from tpu_blosc.filters.pallas_kernels import match_fusable
+    from tpu_blosc import device as d
 
     rng = np.random.default_rng(11)
-    seg = 16384  # smallest fusable geometry (64 KiB blocks, ts=4)
-    offs = _match_offsets(seg)
-    assert match_fusable(seg, offs)
+    seg = 16384
+    offs = d._match_offsets(seg)
     nseg = 16
     base = rng.integers(0, 6, (nseg, seg), dtype=np.uint8)
     for i in range(0, nseg, 2):  # half the rows strongly periodic
-        d = offs[(i * 3 + 1) % len(offs)]
+        dd = offs[(i * 3 + 1) % len(offs)]
         row = base[i]
         keep = rng.random(seg) > 0.01
-        for p in range(d, seg):
+        for p in range(dd, seg):
             if keep[p]:
-                row[p] = row[p - d]
-    filtered = jnp.asarray(base)
-    ref = _device_match_core(filtered, seg, offs)
-    got = _device_match_core_fused(filtered, seg, offs)
-    for name, a, b in zip(
-        ("segs", "best", "lit_counts", "packed"), ref, got
-    ):
-        assert np.array_equal(np.asarray(a), np.asarray(b)), name
-
-
-def test_fused_match_gate_geometry():
-    from tpu_blosc.filters.pallas_kernels import match_fusable
-
-    assert match_fusable(262144, (1, 2, 4, 1024))
-    assert not match_fusable(262144 + 4, (1, 2))  # not 16384-aligned
-    assert not match_fusable(8192, (1, 2))        # SL < 8
-    assert not match_fusable(262144, (1, 2048))   # offset beyond a lane row
+                row[p] = row[p - dd]
+    segs, best, lit_counts, packed = (
+        np.asarray(a) for a in d._device_match_core(jnp.asarray(base), seg, offs)
+    )
+    assert np.array_equal(segs, base)
+    counts = np.stack(
+        [(base[:, o:] == base[:, :-o]).sum(axis=1) for o in offs], axis=1
+    )
+    assert np.array_equal(best, counts.argmax(axis=1))
+    d_all = np.asarray(offs, np.int32)[best]
+    lit = d._host_lit_mask(base, d_all, d._MATCH_T)
+    assert np.array_equal(lit_counts, lit.sum(axis=1))
+    kept = lit_counts <= seg // 10
+    assert kept.any() and not kept.all()  # both kinds of row exercised
+    want = np.packbits(lit & kept[:, None], axis=1, bitorder="little")
+    assert np.array_equal(packed, want)
 
 
 def test_open_mask_bits_matches_byte_oracle():

@@ -38,8 +38,8 @@ def test_device_engagement_table(force_device_backend, n, ts, expected):
 
 def test_native_backend_never_uses_device_path():
     # on the CPU test mesh the probe selects native/numpy; device path off
-    if filters._backend_name in ("native", "numpy"):
-        assert not filters.device_eligible(10**8, 4)
+    assert filters.backend_name() in ("native", "numpy")
+    assert not filters.device_eligible(10**8, 4)
 
 
 def test_forced_numpy_env(monkeypatch):
@@ -63,10 +63,7 @@ def test_forced_numpy_env(monkeypatch):
 
 def test_no_device_env(monkeypatch):
     """TPU_BLOSC_NO_DEVICE skips only the jax/device probe: the native
-    host path stays, and the device path never engages.  This is the
-    import-safety hatch for host-only processes (CLI, workers) — jax
-    backend init can block outright when a remote device plugin's
-    transport is down."""
+    host path stays, and the device path never engages."""
     import importlib
 
     monkeypatch.setenv("TPU_BLOSC_NO_DEVICE", "1")
@@ -97,3 +94,25 @@ def test_all_backends_byte_identical():
             assert np.array_equal(
                 filters.bit_shuffle(data, ts), ref.bit_shuffle(data, ts)
             )
+
+
+def test_import_starts_no_backend():
+    """Importing the package (and using its host paths) must not start a
+    JAX backend: on a GPU that would reserve most of the card's memory
+    in every importing process (CLI, checkpoint workers)."""
+    import subprocess
+    import sys
+
+    code = (
+        "import numpy as np\n"
+        "import tpu_blosc as b, tpu_blosc.checkpoint, tpu_blosc.dist\n"
+        "from jax._src import xla_bridge\n"
+        "assert not xla_bridge.backends_are_initialized()\n"
+        "d = np.arange(3 << 20, dtype=np.float32).tobytes()\n"
+        "assert b.decompress(b.compress_with_options(d, b.Options())) == d\n"
+        "b.backend_name()\n"
+        "assert not xla_bridge.backends_are_initialized(), 'host path'\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]

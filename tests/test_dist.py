@@ -195,7 +195,7 @@ def test_mesh_compress_return_stats():
 
 def test_mesh_stats_histogram_sampling_engages():
     """Above the per-device cap the histogram covers a strict uniform
-    sample (full scatter histograms sort on TPU: 616 ms at 64 MiB), with
+    sample (a full scatter histogram costs more than the filter), with
     sample_bytes giving the exact coverage and padding rows excluded."""
     from tpu_blosc.dist import mesh as tb_mesh
 

@@ -6,6 +6,8 @@ direct kernel calls checked against the generic implementation) — here the
 the pure-Python codecs.
 """
 
+import os
+
 import numpy as np
 import pytest
 
@@ -402,3 +404,42 @@ def test_mask_positions_overflow_returns_none():
     assert nb.mask_positions(mask, 127) is None
     got = nb.mask_positions(mask, 128)
     np.testing.assert_array_equal(got, np.arange(128, dtype=np.int32))
+
+
+def test_build_key_tracks_the_host(monkeypatch):
+    """A library built for another CPU (or from other sources) sits under
+    another key and is never loaded here."""
+    key = nb.build_key()
+    assert key == nb.build_key()
+    monkeypatch.setattr(nb, "_cpu_features", lambda: "sse2 another-cpu")
+    assert nb.build_key() != key
+    monkeypatch.undo()
+    monkeypatch.setattr(nb.platform, "machine", lambda: "another-arch")
+    assert nb.build_key() != key
+
+
+def test_library_loads_from_this_hosts_build():
+    if not nb.available():
+        pytest.skip("native backend unavailable")
+    info = nb.build_info()
+    if nb._LIB_OVERRIDE:
+        assert info["path"] == nb._LIB_OVERRIDE
+    else:
+        want = os.path.join(nb._BUILD_ROOT, nb.build_key(), "libtpublosc.so")
+        assert info["path"] == want and os.path.exists(want)
+        assert "error" not in info
+
+
+def test_build_command_reports_json():
+    import json
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run(
+        [sys.executable, "-m", "tpu_blosc.native"], cwd=root,
+        capture_output=True, text=True, timeout=900,
+    )
+    info = json.loads(r.stdout.strip().splitlines()[-1])
+    assert r.returncode == (0 if info["available"] else 1)
+    assert info["available"] == nb.available()

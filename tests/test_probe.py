@@ -1,18 +1,14 @@
-"""Pallas stream-probe kernels (interpret mode on CPU) + suggest_codec."""
+"""Codec-advisor statistics (api.probe_stats, api._probe_sample) +
+suggest_codec / suggest_options."""
 
 import numpy as np
 import pytest
 
 import tpu_blosc as blosc
-from tpu_blosc.filters import pallas_kernels as pk
+from tpu_blosc.api import _probe_sample, probe_stats
 
 
-def _runs_within_words(a: np.ndarray) -> int:
-    b = a.reshape(-1, 4)
-    return sum(int(np.count_nonzero(b[:, j] == b[:, j + 1])) for j in range(3))
-
-
-def test_stream_probe_matches_numpy():
+def test_probe_stats_matches_numpy():
     rng = np.random.default_rng(0)
     data = np.concatenate(
         [
@@ -21,32 +17,53 @@ def test_stream_probe_matches_numpy():
             (np.arange(30_000) % 7).astype(np.uint8),
         ]
     ).tobytes()
-    stats = pk.stream_probe(data)
+    stats = probe_stats(data)
     a = np.frombuffer(data, np.uint8)
-    tile = pk._TILE_ROWS * pk._LANES * 4
-    padded = np.zeros(-(-a.size // tile) * tile, np.uint8)
-    padded[: a.size] = a
-    want_runs = _runs_within_words(padded) - 3 * ((padded.size - a.size) // 4)
+    want_runs = sum(int(a[i] == a[i + 1]) for i in range(a.size - 1))
     assert stats["n"] == a.size
-    assert abs(stats["run_fraction"] - want_runs / (3 * (a.size // 4))) < 1e-9
+    assert abs(stats["run_fraction"] - want_runs / (a.size - 1)) < 1e-12
     assert abs(stats["mean_byte"] - float(a.astype(np.int64).sum()) / a.size) < 1e-9
 
 
-def test_stream_probe_extremes():
-    zeros = pk.stream_probe(bytes(100_000))
+def test_probe_stats_extremes():
+    zeros = probe_stats(bytes(100_000))
     assert zeros["run_fraction"] == 1.0
     assert zeros["mean_byte"] == 0.0
     rng = np.random.default_rng(1)
-    rand = pk.stream_probe(rng.integers(0, 256, 200_000, dtype=np.uint8).tobytes())
+    rand = probe_stats(rng.integers(0, 256, 200_000, dtype=np.uint8).tobytes())
     assert rand["run_fraction"] < 0.02  # ~1/256
     assert 120 < rand["mean_byte"] < 135
 
 
-def test_probe_ready_device_layout():
-    x = pk.probe_ready(b"\x01\x02\x03\x04" * 1000)
-    assert x.ndim == 2 and x.shape[1] == pk._LANES
-    stats = pk.stream_probe(x)
-    assert stats["n"] == x.shape[0] * pk._LANES * 4  # device path: padded size
+def test_probe_sample_layout():
+    """Inputs beyond the sample budget are sampled as eight evenly spaced,
+    type_size-aligned windows whose total stays within the budget; the
+    statistics describe exactly the sample."""
+    raw = bytes(range(256)) * (64 * 1024)  # 16 MiB
+    sample = _probe_sample(raw, 1 << 22, 4)
+    win = (1 << 22) // 8
+    assert len(sample) == 8 * win <= 1 << 22
+    stride = (len(raw) - win) // 7 // 4 * 4
+    for k in range(8):
+        assert sample[k * win : (k + 1) * win] == raw[k * stride : k * stride + win]
+    assert probe_stats(sample)["n"] == len(sample)
+    assert _probe_sample(raw[:1000], 1 << 22, 4) == raw[:1000]
+
+
+def test_probe_stats_samples_whole_input_not_prefix():
+    """Heterogeneous data whose first 4 MiB is runs but whose tail is
+    random must probe as mixed, not run-friendly (round-2 verdict: the
+    prefix-only sample drove codec choice for arbitrarily large inputs)."""
+    rng = np.random.default_rng(3)
+    runs = np.zeros(6 * 1024 * 1024, np.uint8)
+    noise = rng.integers(0, 256, 18 * 1024 * 1024, dtype=np.uint8)
+    data = np.concatenate([runs, noise]).tobytes()  # 24 MiB, 75% noise
+    stats = probe_stats(_probe_sample(data, 1 << 22, 1))
+    # a prefix sample would read ~1.0; the strided sample must see noise
+    assert stats["run_fraction"] < 0.5, stats
+    # and the pure-runs prefix alone still reads run-friendly
+    prefix = _probe_sample(data[: 4 * 1024 * 1024], 1 << 22, 1)
+    assert probe_stats(prefix)["run_fraction"] > 0.9
 
 
 def test_suggest_codec_run_dominated():
@@ -122,18 +139,3 @@ class TestSuggestOptions:
     def test_empty_raises(self):
         with pytest.raises(blosc.InvalidDataError):
             blosc.suggest_options(b"")
-
-
-def test_stream_probe_samples_whole_input_not_prefix():
-    """Heterogeneous data whose first 4 MiB is runs but whose tail is
-    random must probe as mixed, not run-friendly (round-2 verdict: the
-    prefix-only sample drove codec choice for arbitrarily large inputs)."""
-    rng = np.random.default_rng(3)
-    runs = np.zeros(6 * 1024 * 1024, np.uint8)
-    noise = rng.integers(0, 256, 18 * 1024 * 1024, dtype=np.uint8)
-    data = np.concatenate([runs, noise]).tobytes()  # 24 MiB, 75% noise
-    stats = pk.stream_probe(data)
-    # a prefix sample would read ~1.0; the strided sample must see noise
-    assert stats["run_fraction"] < 0.5, stats
-    # and the pure-runs prefix alone still reads run-friendly
-    assert pk.stream_probe(data[: 4 * 1024 * 1024])["run_fraction"] > 0.9

@@ -668,3 +668,23 @@ def test_stream_verify_deep_batched_matches_serial_errors(tmp_path):
     with StreamReader(path) as r:
         with pytest.raises(blosc.BloscError):
             r.verify(deep=True)
+
+
+def test_dictionary_streams_need_zstandard(tmp_path, monkeypatch):
+    """Dictionary records are python-zstandard streams: without the module
+    the writer refuses up front with a clear error, and so does reading
+    a dictionary record."""
+    import sys
+
+    import tpu_blosc as blosc
+    from tpu_blosc.stream import StreamReader, StreamWriter
+
+    path = tmp_path / "d.tpbs"
+    with StreamWriter(path, dictionary=b"\x00" * 1024) as w:
+        w.write(b"abc" * 1000)
+    monkeypatch.setitem(sys.modules, "zstandard", None)
+    with pytest.raises(blosc.InvalidCodecError, match="zstandard"):
+        StreamWriter(tmp_path / "e.tpbs", train_dict=8)
+    with StreamReader(path) as r:
+        with pytest.raises(blosc.InvalidCodecError, match="zstandard"):
+            r.read(0)

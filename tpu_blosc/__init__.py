@@ -1,12 +1,12 @@
-"""tpu_blosc — a TPU-native Blosc compression framework.
+"""tpu_blosc — a Blosc compression framework for accelerator-resident data.
 
-A from-scratch JAX/XLA/Pallas re-design of the Blosc compressed-frame
+A from-scratch JAX/XLA re-design of the Blosc compressed-frame
 format with the full capability surface of the reference Go library
 (github.com/mrjoshuak/go-blosc): 16-byte frame header, byte-shuffle and
 bit-shuffle filters, five codecs (LZ4, LZ4HC, ZSTD, ZLIB, Snappy), an open
-codec registry, memcpy fallback, and introspection — plus TPU-first
-extensions: Pallas shuffle kernels, multi-block chunked frames, and
-data-parallel block sharding across device meshes.
+codec registry, memcpy fallback, and introspection — plus device
+extensions: on-device shuffle filters for jax.Arrays, multi-block chunked
+frames, and data-parallel block sharding across device meshes.
 
 Basic usage (mirrors reference blosc.go:8-20):
 

@@ -42,7 +42,7 @@ _SHUFFLES = {
 def _build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m tpu_blosc",
-        description="TPU-native Blosc codec CLI",
+        description="Blosc codec CLI",
     )
     sub = p.add_subparsers(dest="cmd", required=True)
 

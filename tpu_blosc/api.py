@@ -772,8 +772,7 @@ def _probe_sample(raw: bytes, sample_bytes: int, type_size: int) -> bytes:
     A prefix-only sample mis-advises heterogeneous data (a structured
     header followed by noise steers every decision off the first 4 MiB);
     eight evenly spaced windows cover the full buffer, each aligned to
-    type_size so the filters still see element boundaries.  Mirrors the
-    device probe's sampling (pallas_kernels.stream_probe windows).
+    type_size so the filters still see element boundaries.
     """
     if len(raw) <= sample_bytes:
         return raw
@@ -785,6 +784,22 @@ def _probe_sample(raw: bytes, sample_bytes: int, type_size: int) -> bytes:
     return b"".join(p for p in parts if p)
 
 
+def probe_stats(sample: bytes) -> dict:
+    """The advisor's compressibility statistics of one (filtered) sample.
+
+    Returns {"run_fraction", "mean_byte", "n"}: the share of adjacent
+    byte pairs that are equal (high: RLE-like data where LZ4 excels),
+    the mean byte value, and the sample length.  A run_fraction near
+    1/256 with a mean near 127.5 reads as incompressible.
+    """
+    a = np.frombuffer(sample, dtype=np.uint8)
+    return {
+        "run_fraction": _run_fraction(a),
+        "mean_byte": float(a.mean()) if a.size else 0.0,
+        "n": a.size,
+    }
+
+
 def suggest_codec(data, type_size: int = 4, sample_bytes: int = 1 << 22) -> Codec:
     """Recommend a codec from a one-pass compressibility probe.
 
@@ -792,8 +807,8 @@ def suggest_codec(data, type_size: int = 4, sample_bytes: int = 1 << 22) -> Code
     codec will actually see): run-dominated data → LZ4 (speed wins,
     matches are cheap), moderate structure → ZSTD (entropy coding pays
     off), near-random → LZ4 (fast path; its memcpy fallback makes the
-    cost of being wrong one cheap pass).  On a TPU backend the probe runs
-    on device (Pallas kernels, filters/pallas_kernels.py); otherwise NumPy.
+    cost of being wrong one cheap pass).  The sample is on the host, so
+    the statistics are NumPy passes (probe_stats).
     """
     raw = _probe_sample(_coerce_bytes(data), sample_bytes, type_size)
     if len(raw) == 0:
@@ -801,26 +816,7 @@ def suggest_codec(data, type_size: int = 4, sample_bytes: int = 1 << 22) -> Code
     if type_size > 1 and len(raw) >= type_size:
         raw = filters.shuffle_bytes(raw, type_size).tobytes()
 
-    stats = None
-    try:
-        import jax
-
-        if jax.default_backend() == "tpu":
-            from .filters import pallas_kernels as pk
-
-            stats = pk.stream_probe(raw)
-    except Exception:
-        stats = None
-    if stats is None:
-        a = np.frombuffer(raw, dtype=np.uint8)
-        pairs = max(a.size - 1, 1)
-        stats = {
-            "run_fraction": float(np.count_nonzero(a[1:] == a[:-1])) / pairs,
-            "mean_byte": float(a.mean()) if a.size else 0.0,
-            "n": a.size,
-        }
-
-    rf = stats["run_fraction"]
+    rf = probe_stats(raw)["run_fraction"]
     if rf >= 0.30:
         return Codec.LZ4  # run-dominated: match copies at memory speed
     if rf >= 0.02:

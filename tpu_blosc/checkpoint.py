@@ -5,7 +5,7 @@ nested structure of arrays; each leaf compresses as one stream record
 (type_size = dtype itemsize, so byte shuffle lines up with the element
 stride), and record 0 is a JSON manifest of the structure + leaf
 metadata.  The reference has no persistence layer at all; this is the
-checkpoint story for the TPU runtime (device arrays go straight through
+checkpoint story for accelerator-resident state (device arrays go straight through
 compress_array — filtering on device — and can load straight back onto
 devices).
 

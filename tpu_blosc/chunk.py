@@ -104,7 +104,7 @@ def _native_pipeline_codec_uncached(codec: int, level: int) -> tuple[int, int] |
         return _native.NATIVE_SNAPPY, 0
     if codec == Codec.ZLIB:
         return _native.NATIVE_ZLIB, level
-    if codec == Codec.ZSTD:
+    if codec == Codec.ZSTD and _native.zstd_available():
         zstd_level = 1 if level <= 2 else 3 if level <= 4 else 9 if level <= 6 else 19
         return _native.NATIVE_ZSTD, zstd_level
     return None
@@ -112,11 +112,9 @@ def _native_pipeline_codec_uncached(codec: int, level: int) -> tuple[int, int] |
 _ENTRY_MEMCPY = 0x80000000
 _ENTRY_SIZE_MASK = 0x7FFFFFFF
 
-# auto block size: large enough to amortize per-block codec overhead and to
-# fill TPU (8,128) tiles, small enough that block + scratch stay L2/L3
-# resident in the host pipeline (measured sweep on the 64 MiB config:
-# 1 MiB beats 2 MiB by ~30% on decompress at equal compress speed; ratio
-# 124x vs 137x on the f32 ramp — see BASELINE.md)
+# auto block size: large enough to amortize per-block codec overhead,
+# small enough that block + scratch stay L2/L3 resident in the host
+# pipeline
 DEFAULT_AUTO_BLOCK = 1024 * 1024
 MIN_BLOCK = 4096
 

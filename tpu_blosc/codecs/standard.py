@@ -25,7 +25,7 @@ from .registry import register_codec
 
 try:
     import zstandard as _zstd
-except ImportError:  # pragma: no cover - zstandard is baked into this env
+except ImportError:  # the native runtime's libzstd serves ZSTD instead
     _zstd = None
 
 try:
@@ -134,16 +134,23 @@ class ZstdCodec:
     """Zstandard with persistent per-tier compressors (≙ zstdCodec, codec.go:173-222).
 
     The reference keeps 4 shared encoders (SpeedFastest/Default/Better/Best)
-    and one shared decoder; we mirror that with cached ZstdCompressor
-    instances at zstd levels 1/3/9/19 (the zstd-library levels those Go
-    speed tiers correspond to).
+    and one shared decoder; we mirror that with zstd levels 1/3/9/19 (the
+    zstd-library levels those Go speed tiers correspond to).  Streams come
+    from python-zstandard when it is installed, else from the libzstd the
+    native runtime loads (``native.backend.zstd_available``).
     """
 
     _TIER_LEVELS = (1, 3, 9, 19)
 
     def __init__(self) -> None:
-        if _zstd is None:  # pragma: no cover
-            raise RuntimeError("zstandard module unavailable")
+        if _zstd is None:
+            if not (_native_ok() and _native.zstd_available()):
+                raise RuntimeError(
+                    "zstd needs the zstandard module or the native runtime "
+                    "with a loadable libzstd"
+                )
+            self._encoders = None
+            return
         self._encoders = [
             _zstd.ZstdCompressor(level=lv) for lv in self._TIER_LEVELS
         ]
@@ -176,6 +183,10 @@ class ZstdCodec:
         return 3
 
     def compress(self, data: bytes, level: int) -> bytes:
+        if self._encoders is None:
+            return _native.zstd_compress(
+                data, self._TIER_LEVELS[self._tier(level)]
+            )
         return self._encoders[self._tier(level)].compress(bytes(data))
 
     def decompress(self, data: bytes, expected_size: int) -> bytes:
@@ -187,6 +198,8 @@ class ZstdCodec:
         # into a size mismatch — the same accept/reject the native path
         # gives (a first frame of exactly expected_size followed by more
         # content must not silently pass).
+        if self._encoders is None:
+            return _native.zstd_decompress(data, expected_size)
         import io
 
         try:
@@ -211,7 +224,7 @@ def register_standard_codecs() -> None:
         (Codec.SNAPPY, SnappyCodec()),
         (Codec.ZLIB, ZlibCodec()),
     ]
-    if _zstd is not None:
+    if _zstd is not None or (_native_ok() and _native.zstd_available()):
         pairs.append((Codec.ZSTD, ZstdCodec()))
     for cid, impl in pairs:
         _BUILTIN_INSTANCES[int(cid)] = impl

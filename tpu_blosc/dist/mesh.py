@@ -2,7 +2,7 @@
 
 The reference is a single-process library with no parallelism beyond SIMD
 (SURVEY §2: NumThreads reserved-but-unused, blosc.go:233; no network code).
-This module is the TPU-native scaling layer it never had: chunked frames
+This module is the multi-device scaling layer it never had: chunked frames
 (chunk.py) already split data into independent blocks, and blocks are the
 data-parallel unit:
 
@@ -14,7 +14,7 @@ data-parallel unit:
 Design rules (scaling-book recipe): pick a mesh, annotate shardings, let
 XLA insert collectives.  The filter step is elementwise-per-block so the
 only collectives are the metadata psum/all_gather at the end; they ride
-ICI, and frames are bit-identical regardless of mesh shape
+the device interconnect, and frames are bit-identical regardless of mesh shape
 ("mesh-invariance" — the distributed analogue of the reference's
 SIMD-vs-generic equality tests, SURVEY §4).
 
@@ -99,8 +99,8 @@ def _unfilter_fn(mode: Shuffle):
 def _apply_sharded_words(x: jax.Array, fn, mesh: Mesh) -> jax.Array:
     """Shard a (nb, words-per-block) word batch over the block axis and
     apply a SWAR filter kernel per row (no communication; see
-    filters/batched._SWAR_SHUFFLE — ts=4 measured 142 vs 79 GB/s over the
-    byte-granular kernels, and the host u8<->word views are free)."""
+    filters/batched._SWAR_SHUFFLE — word kernels beat the byte-granular
+    ones, and the host u8<->word views are free)."""
     sharding = NamedSharding(mesh, P(BLOCK_AXIS, None))
     x = jax.lax.with_sharding_constraint(x, sharding)
     return jax.lax.with_sharding_constraint(fn(x), sharding)
@@ -230,13 +230,13 @@ class MeshStats:
     ``histogram`` is the psum-reduced byte histogram of a UNIFORM CHUNK
     SAMPLE of the filtered stream (entropy proxy, same signal
     suggest_codec uses) covering ``sample_bytes`` bytes — at most
-    ~_HIST_CAP per device.  Full-stream scatter histograms lower to
-    sorts on TPU (measured 616 ms on 64 MiB vs ~0.6 ms of filter work;
-    the 256 KiB sample costs ~3 ms) so exactness is not worth 1000x.
-    When the shard fits under the cap the sample IS the full stream.
+    ~_HIST_CAP per device: a full-stream scatter histogram costs far
+    more than the filter work it describes, and the statistic is an
+    advisory proxy.  When the shard fits under the cap the sample IS the
+    full stream.
     ``block_diffs`` is the all_gathered per-block count of bytes
     differing from their predecessor (run-structure proxy) in header
-    order, exact.  Both ride ICI as explicit collectives inside the
+    order, exact.  Both are explicit collectives inside the
     shard_map step.
     """
 

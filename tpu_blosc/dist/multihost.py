@@ -1,11 +1,11 @@
 """Multi-host chunk compression with ordered gather (BASELINE config 5).
 
 The reference has no distributed communication at all (SURVEY §2: no
-NCCL/MPI/Gloo — zero network imports).  This is the TPU-native layer it
+NCCL/MPI/Gloo — zero network imports).  This is the multi-host layer it
 never had: each process filters+compresses the blocks of its contiguous
 slice of the global byte stream with its local devices/cores, per-block
 compressed sizes and payloads are exchanged with JAX collectives
-(multihost_utils.process_allgather → all_gather over ICI/DCN), and every
+(multihost_utils.process_allgather → all_gather over the interconnect), and every
 process assembles the identical frame in header order.
 
 Frames are bit-identical to the single-process path for every process
@@ -113,7 +113,7 @@ def allgather_payloads(
         return list(payloads), list(memf)
     from jax.experimental import multihost_utils
 
-    # 1) gather per-process block counts and sizes (ICI/DCN all_gather)
+    # 1) gather per-process block counts and sizes (all_gather)
     local_sizes = np.array([len(p) for p in payloads], dtype=np.int64)
     counts = multihost_utils.process_allgather(
         np.array([local_sizes.size], dtype=np.int64)

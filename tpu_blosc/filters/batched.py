@@ -10,21 +10,15 @@ All functions take/return host numpy arrays of shape (nb, bs) with bs a
 multiple of type_size (bit variants: of 8*type_size); ragged tails never
 reach this layer (chunk.py keeps the final short block on the host path).
 
-Performance note (measured on the attached TPU v5e, 64 MiB batches,
-loop-slope timing — per-call timings are async-contaminated, see
-CLAUDE.md): byte-granular relayouts are the cost on this chip — the
-streaming ceiling is ~400 GB/s (819 GB/s HBM, read+write) and
-elementwise loop bodies that stay VMEM-resident measure in TB/s.  The
-SWAR word kernels (`_SWAR_SHUFFLE`/`_SWAR_BIT_SHUFFLE` tables) therefore
-run the whole transform in u32 registers: shuffle 85-90/141-144/105-111
-GB/s at ts=2/4/8 (u8 kernels: 41/81/79), bitshuffle 141/98-101/63-67
-(u8: 28/46/41), inverses 57-153, ts=16 in the same range (full matrix
-in BASELINE.md).  The word views are free
-from host buffers (np .view) and from same-width device dtypes
-(bitcast); bitcasting a device u8 array to words is itself a relayout
-and loses the gain.  Hand-written Pallas equivalents of the lane
-regroupings do not lower through Mosaic (strided lane slice → gather;
-see pallas_kernels.py's record).
+Performance note: byte-granular relayouts are what costs.  The SWAR word
+kernels (`_SWAR_SHUFFLE`/`_SWAR_BIT_SHUFFLE` tables) therefore run the
+whole transform in u32 registers as elementwise word ops.  On an H100
+(1 GiB, ts=2 and ts=4, both directions) they run as fast as a device
+copy of the same bytes, while the u8 reshape-transpose kernels reach
+about two thirds of it (PERF.md).  The word views are free from host
+buffers (np .view) and from same-width device dtypes (bitcast);
+bitcasting a device u8 array to words is itself a relayout and loses
+the gain.
 """
 
 from __future__ import annotations
@@ -53,9 +47,8 @@ def _shuffle_batch_dev(x: jax.Array, type_size: int) -> jax.Array:
 
 @partial(jax.jit, static_argnums=(1,))
 def _unshuffle_batch_dev(x: jax.Array, type_size: int) -> jax.Array:
-    # plain transpose: measured 77.8 GB/s vs 51.5 (P8) / 60.5 (P128) for
-    # the payload decomposition — the inverse direction gains nothing
-    # from sub-tiling (see jaxops._SHUF_PAYLOAD note)
+    # plain transpose: the inverse direction gains nothing from the
+    # payload sub-tiling (see jaxops._SHUF_PAYLOAD note)
     nb, bs = x.shape
     ne = bs // type_size
     return jnp.swapaxes(x.reshape(nb, type_size, ne), 1, 2).reshape(nb, bs)
@@ -103,11 +96,10 @@ def _shuffle_batch_dev_u32(xw: jax.Array) -> jax.Array:
     """ts=4 byte shuffle over (nb, bs//4) uint32 rows (bs % 16 == 0).
 
     The words ARE the elements, so the (ne, 4) byte transpose becomes a
-    4x4 SWAR transpose per word quad + a coarse concat — measured 142 vs
-    79 GB/s for the u8 two-stage transpose on the attached v5e (64 MiB,
-    loop-slope).  Input must arrive as u32 (free host .view / free
-    same-width bitcast from 4-byte dtypes); converting a device u8 array
-    costs more than it saves (see jaxops._bit_transpose_groups record).
+    4x4 SWAR transpose per word quad + a coarse concat, with no
+    byte-granular relayout.  Input must arrive as u32 (free host .view /
+    free same-width bitcast from 4-byte dtypes); converting a device u8
+    array costs more than it saves.
     """
     nb, ne = xw.shape
     q = xw.reshape(nb, ne // 4, 4)
@@ -117,7 +109,7 @@ def _shuffle_batch_dev_u32(xw: jax.Array) -> jax.Array:
 
 @jax.jit
 def _unshuffle_batch_dev_u32(xw: jax.Array) -> jax.Array:
-    """Inverse of _shuffle_batch_dev_u32 (101 vs 76 GB/s measured)."""
+    """Inverse of _shuffle_batch_dev_u32."""
     nb, ne = xw.shape
     q = xw.reshape(nb, 4, ne // 4)
     o0, o1, o2, o3 = _t4x4(q[:, 0], q[:, 1], q[:, 2], q[:, 3])
@@ -151,10 +143,9 @@ def _ts2_weave(x, y):
 def _shuffle_batch_dev_u32_ts2(xw: jax.Array) -> jax.Array:
     """ts=2 byte shuffle over (nb, bs//4) uint32 rows (bs % 8 == 0).
 
-    The bf16/f16/int16 SWAR path.  Runs in u32 (2 elements per word)
-    rather than u16-per-element: 16-bit ops execute at half density on
-    the 32-bit VPU lanes — the u16 formulation measured 84 GB/s vs ~140
-    for the u32 kernels of the same op count."""
+    The bf16/f16/int16 SWAR path for host word views.  Runs in u32 (2
+    elements per word) rather than u16-per-element: half as many word
+    ops for the same bytes."""
     nb, ne = xw.shape
     q = xw.reshape(nb, ne // 2, 2)
     o0 = _ts2_plane_pair(q[..., 0], q[..., 1], 0)
@@ -175,8 +166,7 @@ def _unshuffle_batch_dev_u32_ts2(xw: jax.Array) -> jax.Array:
 def _shuffle_batch_dev_u16(xh: jax.Array) -> jax.Array:
     """ts=2 byte shuffle over (nb, bs//2) uint16 rows (bs % 4 == 0) —
     the same-width-bitcast variant for device u16/bf16 arrays, where
-    widening to u32 would itself be a relayout.  Slower than the u32
-    form from host views (84 vs ~140 GB/s)."""
+    widening to u32 would itself be a relayout."""
     nb, ne = xh.shape
     q = xh.reshape(nb, ne // 2, 2)
     a, b = q[..., 0], q[..., 1]
@@ -217,8 +207,7 @@ def _unshuffle_batch_dev_u32_ts8(xw: jax.Array) -> jax.Array:
     """Inverse of _shuffle_batch_dev_u32_ts8.
 
     One flat 8-array interleave (l_i = lo word of element 4j+i, h_i its
-    hi word) — the staged stack-4+reshape+stack-2 form measured 40.8 vs
-    92.4 GB/s for this single-stack pattern."""
+    hi word) rather than a staged stack-4+reshape+stack-2."""
     nb, ne = xw.shape
     q = xw.reshape(nb, 8, ne // 8)
     l0, l1, l2, l3 = _t4x4(q[:, 0], q[:, 1], q[:, 2], q[:, 3])
@@ -473,34 +462,10 @@ def _run(fn, arr: np.ndarray, type_size: int) -> np.ndarray:
     return np.asarray(out)
 
 
-def _use_pallas_planes(bs: int, type_size: int) -> bool:
-    """Gate for the round-4 Pallas byte-plane kernels: real TPU backend,
-    fusable geometry, escape hatch honored.  338-660 GB/s per direction
-    measured vs 84-144 for the XLA SWAR word paths (pallas_kernels.py)."""
-    import os
-
-    if os.environ.get("TPU_BLOSC_NO_PALLAS_SHUFFLE"):
-        return False
-    from . import pallas_kernels as pk
-
-    return (
-        jax.default_backend() == "tpu"
-        and pk.byte_plane_fusable(bs, type_size)
-    )
-
-
 def shuffle_batch(arr: np.ndarray, type_size: int) -> np.ndarray:
     """Byte-shuffle each row of (nb, bs); bs must be a multiple of ts."""
     if arr.shape[1] % type_size:
         raise ValueError("block size must be a multiple of type_size")
-    if _use_pallas_planes(arr.shape[1], type_size):
-        wdt = np.uint16 if type_size == 2 else np.uint32
-        w = _view_as(arr, wdt, type_size)
-        if w is not None:
-            from . import pallas_kernels as pk
-
-            out = np.asarray(pk.byte_plane_split(jnp.asarray(w), type_size))
-            return out.reshape(arr.shape)
     if type_size in _SWAR_SHUFFLE:
         w = _word_view(arr, type_size)
         if w is not None:
@@ -512,13 +477,6 @@ def shuffle_batch(arr: np.ndarray, type_size: int) -> np.ndarray:
 def unshuffle_batch(arr: np.ndarray, type_size: int) -> np.ndarray:
     if arr.shape[1] % type_size:
         raise ValueError("block size must be a multiple of type_size")
-    if _use_pallas_planes(arr.shape[1], type_size):
-        from . import pallas_kernels as pk
-
-        nb, bs = arr.shape
-        planes = np.ascontiguousarray(arr).reshape(nb, type_size, -1)
-        out = np.asarray(pk.byte_plane_merge(jnp.asarray(planes), type_size))
-        return out.view(np.uint8).reshape(arr.shape)
     if type_size in _SWAR_UNSHUFFLE:
         w = _word_view(arr, type_size)
         if w is not None:

@@ -2,53 +2,26 @@
 
 These are traced, statically-shaped functions over uint8 arrays — the
 XLA-compiled analogue of the reference's generic Go loops (shuffle.go:60-72,
-176-218), used on any backend.  The Pallas TPU kernels in
-pallas_kernels.py are the analogue of the AVX2/NEON assembly; both must be
-byte-identical to filters/reference.py (the oracle).
+176-218), used on any backend; they must be byte-identical to
+filters/reference.py (the oracle).
 
-All functions here take and return 1-D uint8 jax arrays whose length is
-already a multiple of ``type_size`` *and*, for the bit variants, of
-``8*type_size`` — the ragged remainder handling (verbatim tails, partial
-groups) is host-side slicing in filters/__init__.py, keeping traced shapes
-static and tile-friendly.
+The batched kernels (filters/batched.py) build on these pieces; ragged
+remainders (verbatim tails, partial groups) are host-side slicing in
+filters/__init__.py, keeping traced shapes static.
 """
 
 from __future__ import annotations
 
-from functools import partial
-
 import jax
 import jax.numpy as jnp
 
-_BIT_WEIGHTS = None
-
 
 # payload width for the two-stage byte-shuffle decomposition: transpose
-# (P, ts) sub-tiles locally, then permute whole P-byte payloads.  TPU
-# transposes cost by granularity — the big (ne/P, ts) permute moves P-byte
-# units instead of single bytes.  Measured on the attached v5e (64 MiB,
-# loop-slope timing): ts=4 shuffle P8 81.9 / P32 72.5 / P128 45.7 /
-# P512 48.5 / plain 64.5 / u32 shift-pack 21.2 GB/s.  The INVERSE prefers
-# the plain transpose (77.8 vs 51.5 at P8 / 60.5 at P128) — decomposing
-# the gather direction only adds passes, so unshuffle does not use this.
+# (P, ts) sub-tiles locally, then permute whole P-byte payloads, so the
+# big (ne/P, ts) permute moves P-byte units instead of single bytes.  The
+# inverse keeps the plain transpose — decomposing the gather direction
+# only adds passes.
 _SHUF_PAYLOAD = 8
-
-
-@partial(jax.jit, static_argnums=(1,))
-def shuffle_bytes_body(x: jax.Array, type_size: int) -> jax.Array:
-    """Byte-shuffle the full body: (ne, ts) -> (ts, ne) transpose."""
-    ne = x.shape[0] // type_size
-    P = _SHUF_PAYLOAD
-    if ne % P == 0:
-        t = x.reshape(ne // P, P, type_size)
-        return jnp.swapaxes(t, 1, 2).swapaxes(0, 1).reshape(-1)
-    return x.reshape(ne, type_size).T.reshape(-1)
-
-
-@partial(jax.jit, static_argnums=(1,))
-def unshuffle_bytes_body(x: jax.Array, type_size: int) -> jax.Array:
-    ne = x.shape[0] // type_size
-    return x.reshape(type_size, ne).T.reshape(-1)
 
 
 def _bit_transpose_groups(planes: jax.Array) -> jax.Array:
@@ -61,14 +34,9 @@ def _bit_transpose_groups(planes: jax.Array) -> jax.Array:
     SWAR formulation: the 8 group bytes pack big-endian into two u32 words
     and three butterfly stages (Hacker's Delight transpose8, whose BE-in/
     BE-out semantics are exactly this MSB-first transform) do the whole
-    8x8 in ~24 word ops — ~7 VPU ops/byte vs 32 for the unrolled 64
-    shift/or form it replaced.  Measured on the attached v5e (64 MiB,
-    loop-slope): bitshuffle 38.6 -> 46.4, bitunshuffle 45.3 -> 56.5 GB/s.
-    Measured dead ends (do not redo): (a) the (..., 8, 8) bit-matrix form,
-    18.6 GB/s — 8x blow-up; (b) u8<->u32 bitcast_convert_type for the
-    pack/unpack with a byte-reversal-conjugated kernel (shifts 9/18,
-    masks 0x00550055/0x00003333) — bitcasts lower to byte relayouts here
-    and drop throughput to 20.6/14.4 GB/s.
+    8x8 in ~24 word ops — ~7 ops/byte vs 32 for an unrolled 64
+    shift/or form.  The (..., 8, 8) bit-matrix form is an 8x blow-up of
+    the data and is not used.
     """
     p = [planes[..., i].astype(jnp.uint32) for i in range(8)]
     x = (p[0] << 24) | (p[1] << 16) | (p[2] << 8) | p[3]
@@ -97,20 +65,3 @@ def _bit_transpose_groups(planes: jax.Array) -> jax.Array:
         ],
         axis=-1,
     )
-
-
-@partial(jax.jit, static_argnums=(1,))
-def bit_shuffle_body(x: jax.Array, type_size: int) -> jax.Array:
-    """Bit-shuffle full groups: len(x) is a multiple of 8*type_size."""
-    g = x.shape[0] // (8 * type_size)
-    blk = x.reshape(g, 8, type_size)
-    planes = jnp.swapaxes(blk, 1, 2)  # (g, ts, 8)
-    return _bit_transpose_groups(planes).reshape(-1)
-
-
-@partial(jax.jit, static_argnums=(1,))
-def bit_unshuffle_body(x: jax.Array, type_size: int) -> jax.Array:
-    g = x.shape[0] // (8 * type_size)
-    planes = x.reshape(g, type_size, 8)
-    blk = _bit_transpose_groups(planes)  # (g, ts, 8)
-    return jnp.swapaxes(blk, 1, 2).reshape(-1)

@@ -1,7 +1,7 @@
 """NumPy reference implementation of the shuffle filters — the oracle.
 
-These are the ground-truth semantics every accelerated path (JAX/XLA and
-Pallas kernels in filters/jaxops.py / filters/pallas_kernels.py) must match
+These are the ground-truth semantics every accelerated path (the JAX/XLA
+kernels in filters/jaxops.py and filters/batched.py, the native C++) must match
 byte-for-byte, mirroring how the reference tests its SIMD kernels against a
 duplicated generic implementation (reference: shuffle_amd64_test.go:152-174).
 

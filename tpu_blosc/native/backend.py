@@ -1,84 +1,172 @@
 """ctypes binding to the C++ host backend (libtpublosc.so).
 
-Build contract: the shared library is compiled on demand from
-``tpublosc.cpp`` next to this file (g++ -O3 -march=native -fopenmp -shared)
-and cached; if the toolchain or source is missing, ``available()`` returns
-False and callers fall back to the pure-Python/NumPy paths — the same
-boolean-degradation contract as the reference's SIMD dispatch
-(shuffle.go:31-57).
+Build contract: ``libtpublosc.so`` (from ``tpublosc.cpp``) and the
+CPython fastcall module ``_tpbfast.so`` (from ``fastmod.c``) are compiled
+from the tracked sources into ``build/<key>/`` next to this file, where
+``<key>`` hashes the sources, the compiler flags, the machine, the CPU's
+feature flags and the Python ABI.  A library built on another host (or
+from other sources) therefore sits under another key and is never
+loaded.  The build runs at first use, or ahead of time with the one
+documented command::
+
+    python -m tpu_blosc.native
+
+which builds (if needed), prints the build record and exits non-zero
+when the library is unavailable.  The build has a single attempt with a
+single deadline (``BUILD_TIMEOUT_S``); a failure is reported with the
+compiler's message (``build_info()``, and a RuntimeWarning) and callers
+fall back to the pure-Python/NumPy paths — the same boolean-degradation
+contract as the reference's SIMD dispatch (shuffle.go:31-57).
 
 Beyond the single-buffer entry points (mirroring the reference's per-call
 API), this exposes the whole-chunk block pipelines
 (``compress_blocks``/``decompress_blocks``) that filter+compress every
-block of a chunked frame in one call with OpenMP across blocks — the
-host-side analogue of sharding blocks across TPU chips (SURVEY §5).
+block of a chunked frame in one call with OpenMP across blocks.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
+import sys
+import sysconfig
 import threading
+import time
 
 import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "tpublosc.cpp")
+_FAST_SRC = os.path.join(_HERE, "fastmod.c")
+_BUILD_ROOT = os.path.join(_HERE, "build")
 # TPU_BLOSC_LIB: explicit path to a prebuilt library (sanitizer builds in
-# CI, cross-build testing); when set, the staleness auto-rebuild is skipped.
+# CI, cross-build testing); when set, nothing is built and the fastcall
+# module stays off.
 _LIB_OVERRIDE = os.environ.get("TPU_BLOSC_LIB")
-_LIB_PATH = _LIB_OVERRIDE or os.path.join(_HERE, "libtpublosc.so")
+
+#: one deadline for the whole build (library + fastcall module), seconds
+BUILD_TIMEOUT_S = 600
 
 _lib = None
 _fast = None  # CPython fastcall module (_tpbfast), see _load_fastmod
 _lock = threading.Lock()
 _tried = False
+_build_info: dict = {}
 
 _i64 = ctypes.c_int64
 _p = ctypes.c_void_p
 
 
-def _build() -> bool:
-    """Compile the shared library, degrading FLAGS before giving up.
+def _compile_flags() -> tuple[list[str], list[str]]:
+    """(flags, extra include/lib paths) for this platform.
 
-    Stock Apple clang (the macos-arm64 `g++` alias) rejects both
-    `-march=native` and `-fopenmp`; neither is required for a working
-    backend — every AVX2/SSE intrinsic and every OpenMP call in the
-    source is #ifdef-gated, so dropping the flags yields portable scalar
-    kernels + the SpinPool (which needs no OpenMP) instead of a failed
-    build (the reference ships NEON kernels for this slot,
-    shuffle_arm64.s:65-224; our portability contract is the boolean
-    fallback chain staying NATIVE on non-x86 hosts).  Homebrew include/
-    lib paths are added on darwin — Apple clang does not search
-    /opt/homebrew by default, and zlib/zstd live there on arm64 runners.
-    """
-    if not os.path.exists(_SRC):
-        return False
-    import sys
-
-    extra: list[str] = []
+    Stock Apple clang (the macOS ``g++`` alias) rejects ``-march=native``
+    and ``-fopenmp``; neither is required — every SIMD intrinsic and
+    every OpenMP call in the source is #ifdef-gated, and the SpinPool
+    needs no OpenMP — so darwin builds without them and adds the Homebrew
+    prefixes, which Apple clang does not search by default."""
+    base = ["-O3", "-funroll-loops", "-shared", "-fPIC", "-std=c++17"]
     if sys.platform == "darwin":
+        extra = []
         for pre in ("/opt/homebrew", "/usr/local"):
             if os.path.isdir(pre + "/include"):
                 extra += ["-I" + pre + "/include", "-L" + pre + "/lib"]
-    base = ["-O3", "-funroll-loops", "-shared", "-fPIC", "-std=c++17"]
-    for flags in (
-        ["-march=native", "-fopenmp"],
-        ["-fopenmp"],
-        ["-march=native"],
-        [],
+        return base, extra
+    return base + ["-march=native", "-fopenmp"], []
+
+
+def _cpu_features() -> str:
+    """The CPU's feature flags (x86 ``flags`` / arm ``Features`` line of
+    /proc/cpuinfo); elsewhere the processor name."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith(("flags", "Features")):
+                    return line.split(":", 1)[1].strip()
+    except OSError:
+        pass
+    return platform.processor()
+
+
+def build_key() -> str:
+    """Hash of everything the built binaries depend on (see module doc)."""
+    h = hashlib.sha256()
+    for path in (_SRC, _FAST_SRC):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    flags, extra = _compile_flags()
+    for part in (
+        " ".join(flags + extra), sys.platform, platform.machine(),
+        _cpu_features(), sysconfig.get_config_var("EXT_SUFFIX") or "",
     ):
-        cmd = (
-            ["g++"] + base + flags + extra
-            + [_SRC, "-o", _LIB_PATH, "-lz", "-lzstd"]
+        h.update(part.encode() + b"\0")
+    return h.hexdigest()[:16]
+
+
+def _run_compiler(cmd: list[str], out: str, deadline: float) -> None:
+    """Run ``cmd`` (whose ``"{out}"`` element is the output path) into a
+    private temp name and rename it into place, so concurrent processes
+    never load a half-written file."""
+    tmp = f"{out}.tmp{os.getpid()}"
+    cmd = [c if c != "{out}" else tmp for c in cmd]
+    try:
+        subprocess.run(
+            cmd, check=True, capture_output=True, text=True,
+            timeout=max(deadline - time.monotonic(), 1.0),
         )
-        try:
-            subprocess.run(cmd, check=True, capture_output=True, timeout=300)
-            return True
-        except Exception:
-            continue
-    return False
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
+def _build(build_dir: str) -> None:
+    """Build both binaries into ``build_dir`` (skipping what exists).
+
+    Raises on failure.  A file lock serialises concurrent builds (test
+    workers importing the package at once); the loser finds the files."""
+    os.makedirs(build_dir, exist_ok=True)
+    lib_path = os.path.join(build_dir, "libtpublosc.so")
+    fast_path = os.path.join(build_dir, "_tpbfast.so")
+    flags, extra = _compile_flags()
+    deadline = time.monotonic() + BUILD_TIMEOUT_S
+    try:
+        import fcntl
+    except ImportError:  # pragma: no cover - non-POSIX
+        fcntl = None
+    with open(build_dir + ".lock", "w") as lock:
+        if fcntl is not None:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+        t0 = time.monotonic()
+        if not os.path.exists(lib_path):
+            _run_compiler(
+                ["g++"] + flags + extra + [_SRC, "-o", "{out}", "-lz"],
+                lib_path, deadline,
+            )
+        if not os.path.exists(fast_path):
+            # optional: without it the ctypes entry points serve every call
+            try:
+                _run_compiler(
+                    ["gcc", "-O2", "-shared", "-fPIC",
+                     "-I", sysconfig.get_paths()["include"], _FAST_SRC,
+                     "-o", "{out}", "-L", build_dir, "-ltpublosc",
+                     "-Wl,-rpath,$ORIGIN"],
+                    fast_path, deadline,
+                )
+            except (OSError, subprocess.SubprocessError) as exc:
+                msg = getattr(exc, "stderr", None) or str(exc)
+                _build_info["fastmod_error"] = msg[-2000:]
+        _build_info["build_seconds"] = round(time.monotonic() - t0, 3)
+
+
+def build_info() -> dict:
+    """Where the native library came from: path, build key, flags, build
+    time, or the error that kept it from loading."""
+    available()
+    return dict(_build_info)
 
 
 def _load() -> None:
@@ -88,19 +176,36 @@ def _load() -> None:
             return
         _tried = True
         if os.environ.get("TPU_BLOSC_NO_NATIVE"):
+            _build_info["error"] = "disabled by TPU_BLOSC_NO_NATIVE"
             return
         if _LIB_OVERRIDE:
-            if not os.path.exists(_LIB_PATH):
-                return
-        elif not os.path.exists(_LIB_PATH) or (
-            os.path.exists(_SRC)
-            and os.path.getmtime(_SRC) > os.path.getmtime(_LIB_PATH)
-        ):
-            if not _build():
+            lib_path = _LIB_OVERRIDE
+            _build_info.update(path=lib_path, flags="prebuilt (TPU_BLOSC_LIB)")
+        else:
+            key = build_key()
+            build_dir = os.path.join(_BUILD_ROOT, key)
+            lib_path = os.path.join(build_dir, "libtpublosc.so")
+            flags, extra = _compile_flags()
+            _build_info.update(
+                path=lib_path, key=key, flags=" ".join(flags + extra)
+            )
+            try:
+                _build(build_dir)
+            except (OSError, subprocess.SubprocessError) as exc:
+                msg = getattr(exc, "stderr", None) or str(exc)
+                _build_info["error"] = f"native build failed: {msg[-2000:]}"
+                import warnings
+
+                warnings.warn(
+                    "tpu_blosc: " + _build_info["error"]
+                    + " — using the pure-Python codecs",
+                    RuntimeWarning, stacklevel=3,
+                )
                 return
         try:
-            lib = ctypes.CDLL(_LIB_PATH)
-        except OSError:
+            lib = ctypes.CDLL(lib_path)
+        except OSError as exc:
+            _build_info["error"] = f"load failed: {exc}"
             return
         for name in ("tpb_lz4_compress",):
             fn = getattr(lib, name)
@@ -175,40 +280,30 @@ def _load() -> None:
             _p, _i64,                             # out, n
             ctypes.c_int, ctypes.c_int, ctypes.c_int,  # ts, shuffle_mode, codec
         ]
+        lib.tpb_zstd_available.restype = ctypes.c_int
+        lib.tpb_zstd_available.argtypes = []
+        lib.tpb_zstd_compress.restype = _i64
+        lib.tpb_zstd_compress.argtypes = [_p, _i64, _p, _i64, ctypes.c_int]
+        lib.tpb_zstd_decompress.restype = _i64
+        lib.tpb_zstd_decompress.argtypes = [_p, _i64, _p, _i64]
         _lib = lib
-        _load_fastmod()
+        _load_fastmod(os.path.dirname(lib_path))
 
 
-def _load_fastmod() -> None:
-    """Build + import the CPython fastcall module (_tpbfast) when possible.
+def _load_fastmod(build_dir: str) -> None:
+    """Import the CPython fastcall module (_tpbfast) when it was built.
 
     The module links against libtpublosc.so (rpath $ORIGIN) and cuts the
     per-call ctypes marshalling + staging memmove from the single-block
-    hot path.  Any failure (no toolchain, sanitizer override build,
-    TPU_BLOSC_NO_FAST) silently leaves the ctypes path in charge.
+    hot path.  Without it (build failure, sanitizer override build,
+    TPU_BLOSC_NO_FAST) the ctypes path serves every call.
     """
     global _fast
     if _LIB_OVERRIDE or os.environ.get("TPU_BLOSC_NO_FAST"):
         return
-    import sysconfig
-
-    src = os.path.join(_HERE, "fastmod.c")
-    out = os.path.join(_HERE, "_tpbfast.so")
-    if not os.path.exists(src):
+    out = os.path.join(build_dir, "_tpbfast.so")
+    if not os.path.exists(out):
         return
-    if not os.path.exists(out) or os.path.getmtime(src) > os.path.getmtime(
-        out
-    ):
-        cmd = [
-            "gcc", "-O2", "-shared", "-fPIC",
-            "-I", sysconfig.get_paths()["include"],
-            src, "-o", out,
-            "-L", _HERE, "-ltpublosc", "-Wl,-rpath,$ORIGIN",
-        ]
-        try:
-            subprocess.run(cmd, check=True, capture_output=True, timeout=60)
-        except Exception:
-            return
     try:
         import importlib.util
 
@@ -220,6 +315,7 @@ def _load_fastmod() -> None:
         _fast = mod
     except Exception:
         _fast = None
+    _build_info["fastcall"] = _fast is not None
 
 
 def available() -> bool:
@@ -235,6 +331,11 @@ def num_threads() -> int:
 def _ensure() -> None:
     if not available():
         raise RuntimeError("native backend unavailable")
+
+
+def zstd_available() -> bool:
+    """Whether the runtime found a loadable libzstd (it is dlopen'd)."""
+    return available() and bool(_lib.tpb_zstd_available())
 
 
 # Uninitialized-bytes allocation via the CPython C API: native kernels
@@ -351,6 +452,32 @@ def snappy_decompress(data, expected_size: int) -> bytes:
         raise DecompressionFailedError(
             f"snappy: malformed stream (code {written})"
         )
+    return out if written == expected_size else out[:written]
+
+
+def zstd_compress(data, level: int) -> bytes:
+    """One zstd frame at the given zstd library level."""
+    _ensure()
+    a = _as_u8(data)
+    cap = int(_lib.tpb_compress_bound(a.size, NATIVE_ZSTD))
+    out = np.empty(cap, dtype=np.uint8)
+    written = _lib.tpb_zstd_compress(_ptr(a), a.size, _ptr(out), cap, level)
+    if written < 0:
+        raise RuntimeError(f"native zstd compress failed ({written})")
+    return out[:written].tobytes()
+
+
+def zstd_decompress(data, expected_size: int) -> bytes:
+    """Decode one or more concatenated zstd frames into at most
+    ``expected_size`` bytes (more content is a malformed stream)."""
+    _ensure()
+    from ..errors import DecompressionFailedError
+
+    a = _as_u8(data)
+    out, addr = alloc_bytes(expected_size)
+    written = _lib.tpb_zstd_decompress(_ptr(a), a.size, addr, expected_size)
+    if written < 0:
+        raise DecompressionFailedError(f"zstd: malformed stream (code {written})")
     return out if written == expected_size else out[:written]
 
 

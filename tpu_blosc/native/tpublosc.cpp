@@ -1,6 +1,6 @@
 // tpublosc — native host backend for the tpu_blosc framework.
 //
-// This is the TPU-native framework's host runtime: the role the reference
+// This is the framework's host runtime: the role the reference
 // fills with Plan9 assembly (shuffle_amd64.s / shuffle_arm64.s) and
 // third-party Go codec libraries (pierrec/lz4, klauspost/compress).  It is
 // a from-scratch C++17 implementation of:
@@ -17,7 +17,7 @@
 //     the mask-shift trick instead of per-bit moves)
 //   * OpenMP-parallel whole-chunk block pipelines (shuffle+compress /
 //     decompress+unshuffle of every block of a chunk in one call) — the
-//     host-side analogue of sharding blocks across TPU chips.
+//     host-side analogue of sharding blocks across devices.
 //
 // Exported C ABI consumed by native/backend.py via ctypes.  All functions
 // are thread-safe and allocation-free on the hot path (callers provide
@@ -70,10 +70,131 @@ __attribute__((constructor)) static void tpb_tune_malloc() {
 // System compression libraries for the ZLIB/ZSTD block pipelines (the
 // reference uses klauspost/compress for both, codec.go:134-222; the
 // formats are standard so any conformant implementation interoperates).
+// zlib is linked; libzstd is dlopen'd (see ZstdLib below).
 #include <zlib.h>
-#include <zstd.h>
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// libzstd, resolved at run time
+//
+// Hosts often ship the runtime libzstd.so.1 without its development header
+// or link-time symlink, so the build neither includes <zstd.h> nor links
+// -lzstd: the stable-ABI subset used here is declared locally and
+// resolved with dlopen on first use.  Without a loadable libzstd every
+// ZSTD call reports an error and tpb_zstd_available() returns 0 (the
+// Python layer then keeps the ZSTD codec off the native paths).
+// ---------------------------------------------------------------------------
+
+typedef struct ZSTD_CCtx_s ZSTD_CCtx;
+typedef struct ZSTD_DCtx_s ZSTD_DCtx;
+constexpr unsigned long long ZSTD_CONTENTSIZE_UNKNOWN = 0ULL - 1;
+constexpr unsigned long long ZSTD_CONTENTSIZE_ERROR = 0ULL - 2;
+
+struct ZstdLib {
+  ZSTD_CCtx *(*create_c)(void) = nullptr;
+  size_t (*free_c)(ZSTD_CCtx *) = nullptr;
+  ZSTD_DCtx *(*create_d)(void) = nullptr;
+  size_t (*free_d)(ZSTD_DCtx *) = nullptr;
+  size_t (*compress_cctx)(ZSTD_CCtx *, void *, size_t, const void *, size_t,
+                          int) = nullptr;
+  size_t (*compress)(void *, size_t, const void *, size_t, int) = nullptr;
+  size_t (*decompress_dctx)(ZSTD_DCtx *, void *, size_t, const void *,
+                            size_t) = nullptr;
+  size_t (*decompress)(void *, size_t, const void *, size_t) = nullptr;
+  unsigned (*is_error)(size_t) = nullptr;
+  size_t (*bound)(size_t) = nullptr;
+  unsigned long long (*content_size)(const void *, size_t) = nullptr;
+  size_t (*frame_size)(const void *, size_t) = nullptr;
+  bool ok = false;
+  ZstdLib() {
+    const char *names[] = {"libzstd.so.1", "libzstd.so", "libzstd.1.dylib",
+                           "libzstd.dylib"};
+    void *h = nullptr;
+    for (const char *name : names) {
+      if ((h = dlopen(name, RTLD_NOW)) != nullptr) break;
+    }
+    if (!h) return;
+    create_c = (ZSTD_CCtx * (*)(void)) dlsym(h, "ZSTD_createCCtx");
+    free_c = (size_t(*)(ZSTD_CCtx *))dlsym(h, "ZSTD_freeCCtx");
+    create_d = (ZSTD_DCtx * (*)(void)) dlsym(h, "ZSTD_createDCtx");
+    free_d = (size_t(*)(ZSTD_DCtx *))dlsym(h, "ZSTD_freeDCtx");
+    compress_cctx = (size_t(*)(ZSTD_CCtx *, void *, size_t, const void *,
+                               size_t, int))dlsym(h, "ZSTD_compressCCtx");
+    compress = (size_t(*)(void *, size_t, const void *, size_t,
+                          int))dlsym(h, "ZSTD_compress");
+    decompress_dctx = (size_t(*)(ZSTD_DCtx *, void *, size_t, const void *,
+                                 size_t))dlsym(h, "ZSTD_decompressDCtx");
+    decompress = (size_t(*)(void *, size_t, const void *,
+                            size_t))dlsym(h, "ZSTD_decompress");
+    is_error = (unsigned (*)(size_t))dlsym(h, "ZSTD_isError");
+    bound = (size_t(*)(size_t))dlsym(h, "ZSTD_compressBound");
+    content_size = (unsigned long long (*)(const void *, size_t))dlsym(
+        h, "ZSTD_getFrameContentSize");
+    frame_size = (size_t(*)(const void *, size_t))dlsym(
+        h, "ZSTD_findFrameCompressedSize");
+    ok = create_c && free_c && create_d && free_d && compress_cctx &&
+         compress && decompress_dctx && decompress && is_error && bound &&
+         content_size && frame_size;
+  }
+};
+
+static const ZstdLib &zstd_lib() {
+  static const ZstdLib lib;
+  return lib;
+}
+
+// zstd.h-shaped wrappers: the codec code below reads as plain libzstd use.
+// An unloaded library yields null contexts and error codes.
+constexpr size_t kZstdError = (size_t)-1;
+static inline ZSTD_CCtx *ZSTD_createCCtx() {
+  return zstd_lib().ok ? zstd_lib().create_c() : nullptr;
+}
+static inline void ZSTD_freeCCtx(ZSTD_CCtx *p) {
+  if (p) zstd_lib().free_c(p);
+}
+static inline ZSTD_DCtx *ZSTD_createDCtx() {
+  return zstd_lib().ok ? zstd_lib().create_d() : nullptr;
+}
+static inline void ZSTD_freeDCtx(ZSTD_DCtx *p) {
+  if (p) zstd_lib().free_d(p);
+}
+static inline size_t ZSTD_compressCCtx(ZSTD_CCtx *c, void *dst, size_t cap,
+                                       const void *src, size_t n, int lv) {
+  return zstd_lib().compress_cctx(c, dst, cap, src, n, lv);
+}
+static inline size_t ZSTD_compress(void *dst, size_t cap, const void *src,
+                                   size_t n, int lv) {
+  return zstd_lib().ok ? zstd_lib().compress(dst, cap, src, n, lv)
+                       : kZstdError;
+}
+static inline size_t ZSTD_decompressDCtx(ZSTD_DCtx *d, void *dst, size_t cap,
+                                         const void *src, size_t n) {
+  return zstd_lib().decompress_dctx(d, dst, cap, src, n);
+}
+static inline size_t ZSTD_decompress(void *dst, size_t cap, const void *src,
+                                     size_t n) {
+  return zstd_lib().ok ? zstd_lib().decompress(dst, cap, src, n)
+                       : kZstdError;
+}
+static inline unsigned ZSTD_isError(size_t code) {
+  return zstd_lib().ok ? zstd_lib().is_error(code) : 1;
+}
+static inline size_t ZSTD_compressBound(size_t n) {
+  // the library's own bound when loaded; otherwise zstd's documented
+  // formula (ZSTD_COMPRESSBOUND) so buffer sizing never depends on it
+  if (zstd_lib().ok) return zstd_lib().bound(n);
+  return n + (n >> 8) + (n < (128 << 10) ? ((128 << 10) - n) >> 11 : 0);
+}
+static inline unsigned long long ZSTD_getFrameContentSize(const void *src,
+                                                          size_t n) {
+  return zstd_lib().ok ? zstd_lib().content_size(src, n)
+                       : ZSTD_CONTENTSIZE_ERROR;
+}
+static inline size_t ZSTD_findFrameCompressedSize(const void *src,
+                                                  size_t n) {
+  return zstd_lib().ok ? zstd_lib().frame_size(src, n) : kZstdError;
+}
 
 #if defined(__x86_64__) || defined(_M_X64)
 static inline void cpu_relax() { _mm_pause(); }
@@ -1073,7 +1194,7 @@ static int64_t lz4_scan_compress(const uint8_t *src, int64_t n, uint8_t *dst,
 // (value, length) run records whose concatenation is the uncompressed
 // block.  Each long run becomes one literal byte + an offset-1 match (the
 // classic LZ4 RLE form); short runs accumulate into literal sections.
-// Used by the device-RLE pipeline: the O(n) run scan happens on the TPU
+// Used by the device-RLE pipeline: the O(n) run scan happens on the device
 // and only O(runs) records reach the host, which emits tokens here in
 // O(runs) -- the output decodes with ANY LZ4 block decoder.
 //
@@ -1168,7 +1289,7 @@ static int64_t lz4_emit_runs(const uint8_t *vals, const int64_t *lens,
 // (the device-side mask construction guarantees all of this: positions
 // < d and the last 16 bytes of each row are forced literal, and match
 // runs survive only if >= the opening window).  Used by the device match
-// pipeline: the TPU discovers matches and ships O(literals) records; the
+// pipeline: the device discovers matches and ships O(literals) records; the
 // host serializes tokens here in O(records).  Output decodes with ANY
 // LZ4 block decoder.
 //
@@ -3042,7 +3163,7 @@ enum ShuffleMode { kNoShuffle = 0, kByteShuffle = 1, kBitShuffle = 2 };
 // single-thread on the shuffled-ramp fixture; reading is byte-agnostic).
 // Encode (round 4) rides it ONLY for SHUFFLED payloads at zlib level
 // >= 4: there libdeflate measured faster AND smaller than libz at a 1:1
-// level map on every fixture/level (scratch/zlib_sweep.py: 1 MiB
+// level map on every fixture/level (1 MiB
 // shuffled-ramp level 5 is -16.7% size at 1.8x speed).  On UNSHUFFLED
 // data (text) libdeflate loses size at speed parity, so that class — and
 // any level <= 3, where libz is faster on compressible data — keeps libz
@@ -3063,7 +3184,7 @@ struct LibDeflate {
   bool raw_ok = false;
   // encode side (round 4): raw-deflate compressor for SHUFFLED payloads,
   // where libdeflate measured both faster AND smaller than libz at every
-  // level >= 4 (scratch/zlib_sweep.py; on unshuffled text it loses size,
+  // level >= 4 (on unshuffled text it loses size,
   // so that class keeps libz)
   void *(*alloc_c)(int) = nullptr;
   size_t (*compress_raw)(void *, const void *, size_t, void *,
@@ -4496,6 +4617,18 @@ int64_t tpb_snappy_compress(const uint8_t *src, int64_t n, uint8_t *dst,
 int64_t tpb_snappy_decompress(const uint8_t *src, int64_t n, uint8_t *dst,
                               int64_t cap) {
   return snappy_decompress(src, n, dst, cap);
+}
+
+int tpb_zstd_available(void) { return zstd_lib().ok ? 1 : 0; }
+
+int64_t tpb_zstd_compress(const uint8_t *src, int64_t n, uint8_t *dst,
+                          int64_t cap, int level) {
+  return codec_compress(kCodecZstd, level, src, n, dst, cap);
+}
+
+int64_t tpb_zstd_decompress(const uint8_t *src, int64_t n, uint8_t *dst,
+                            int64_t cap) {
+  return codec_decompress(kCodecZstd, src, n, dst, cap);
 }
 
 void tpb_shuffle(const uint8_t *src, uint8_t *dst, int64_t n, int ts) {

@@ -1,7 +1,7 @@
 """Streaming file API: appendable on-disk sequences of Blosc frames.
 
 The reference is a one-shot in-memory API with no file/streaming layer at
-all (SURVEY §5: no checkpoint/IO subsystem) — this is the TPU-native
+all (SURVEY §5: no checkpoint/IO subsystem) — this is the device-side
 data-loader story the round-1 verdict listed as the stretch item: write
 compressed records incrementally (activations, dataset shards, checkpoint
 pieces), reopen to append, read back by index or by iteration, optionally
@@ -54,6 +54,7 @@ import threading
 from .errors import (
     BloscError,
     DecompressionFailedError,
+    InvalidCodecError,
     InvalidDataError,
     InvalidHeaderError,
     SizeMismatchError,
@@ -81,6 +82,19 @@ _FLAG_CRC = 0x1
 
 def _pack_header(flags: int = 0) -> bytes:
     return MAGIC + bytes([STREAM_VERSION, flags, 0, 0])
+
+
+def _zstandard():
+    """python-zstandard, which dictionary records need: the native
+    runtime's libzstd serves plain ZSTD frames but not dictionaries."""
+    try:
+        import zstandard
+    except ImportError as exc:
+        raise InvalidCodecError(
+            "blosc: zstd dictionary streams need the zstandard module, "
+            "which is not installed"
+        ) from exc
+    return zstandard
 
 
 class StreamWriter:
@@ -111,6 +125,8 @@ class StreamWriter:
         self._dict_size = dict_size
         self._crc = bool(checksum)
         self._pending: list | None = [] if self._train_target else None
+        if dictionary is not None or self._train_target:
+            _zstandard()
         if append and os.path.exists(self._path):
             offsets, data_end, crc = _scan_or_index(self._path)
             self._crc = crc  # whole-stream property: adopt the file's flag
@@ -158,7 +174,7 @@ class StreamWriter:
         self._dict_written = True
 
     def _dict_record(self, raw: bytes, opts: Options) -> bytes:
-        import zstandard as zstd
+        zstd = _zstandard()
 
         comp = zstd.ZstdCompressor(
             level=opts.clamped().level,
@@ -177,9 +193,7 @@ class StreamWriter:
         samples = [raw for kind, raw, _ in pending if kind == "data"]
         if self._dict is None and len(samples) >= 7:
             try:
-                import zstandard as zstd
-
-                self._dict = zstd.train_dictionary(
+                self._dict = _zstandard().train_dictionary(
                     self._dict_size, samples
                 ).as_bytes()
             except Exception:
@@ -397,7 +411,7 @@ class StreamReader:
         return self._dict
 
     def _decode_dict_record(self, frame: bytes) -> bytes:
-        import zstandard as zstd
+        zstd = _zstandard()
 
         if len(frame) < 13 or frame[4] != _DICT_PAYLOAD:
             raise InvalidDataError(
